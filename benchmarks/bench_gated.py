@@ -7,7 +7,7 @@ dense masked gating (virtual-covariance NIS against all slots), the fused
 single-P-rewrite measurement update, and masked augmentation as new landmarks
 are discovered.  Reports control steps/s, ATE RMSE, and the mapped count.
 
-Run on TPU: python benchmarks/bench_gated.py [steps]
+Run: python benchmarks/bench_gated.py [steps]
 """
 
 import os
@@ -16,7 +16,6 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import numpy as np
 
 
 def log(*a):
@@ -30,16 +29,14 @@ SEED = 7
 def main(steps: int = 25_000):
     import jax
 
-    from conan_slam_tpu.config import SlamConfig
-    from conan_slam_tpu.runner import metrics
-    from conan_slam_tpu.runner.loop import run_ekf_slam_precomputed
-    from conan_slam_tpu.sim.world import default_world, random_world
+    from conan_slam.config import SlamConfig
+    from conan_slam.runner import metrics
+    from conan_slam.runner.loop import run_ekf_slam_precomputed
+    from conan_slam.sim.world import default_world, random_world
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_bench_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from conan_slam.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
 
     # 500 random landmarks, canonical waypoint tour (comparable trajectory).
     wworld = random_world(jax.random.PRNGKey(SEED), N_LANDMARKS)
@@ -50,14 +47,14 @@ def main(steps: int = 25_000):
         max_obs=64,
         switch_association_known=False,   # gated NN (the config-2 regime)
     )
-    from conan_slam_tpu.runner.loop import (
+    from conan_slam.runner.loop import (
         precompute_rollout,
         run_ekf_slam_precomputed_chunked,
     )
 
     # GATED_CHUNK splits the horizon into same-shape dispatches (large-D
-    # frames run ms each; one 25k-step program at 10k landmarks would exceed
-    # the remote backend's per-execution window).
+    # frames run ms each; chunks let the host checkpoint and report between
+    # them).
     chunk = int(os.environ.get("GATED_CHUNK", "0"))
     # GATED_CKPT_DIR turns on per-chunk checkpoint/resume (utils.checkpoint
     # via the chunked driver) — a killed run restarted with the same env
@@ -77,7 +74,7 @@ def main(steps: int = 25_000):
         state, outs = run_ekf_slam_precomputed(
             world, cfg, key, n_steps=steps, precomputed=roll
         )
-    np.asarray(outs.x_est)
+    jax.block_until_ready((state, outs))
     log(f"compile+first run: {time.time() - t0:.1f}s")
     ts = []
     for i in range(3):
@@ -92,8 +89,7 @@ def main(steps: int = 25_000):
                 world, cfg, jax.random.PRNGKey(100 + i), n_steps=steps,
                 precomputed=roll,
             )
-        np.asarray(outs.x_est)
-        np.asarray(state.x)
+        jax.block_until_ready((state, outs))
         ts.append(time.perf_counter() - t0)
     best = min(ts)
     ate = float(metrics.ate_rmse(outs.x_true, outs.x_est, ~outs.done))

@@ -4,7 +4,7 @@ pose-graph relaxation.
 Two stages:
   1. FILTER: the vehicle drives a star-polygon tour (the path self-intersects
      repeatedly — a multi-loop facility sweep) through a 5,000-landmark world
-     (joint state D = 10,003 -> padded 10,240; dense P ~420 MB in HBM),
+     (joint state D = 10,003 -> padded 10,240; dense P ~420 MB on the device),
      mapping from scratch.  Reports control steps/s at the largest
      single-chip state size.
   2. POSE GRAPH: the classic loop-closure regime on the same tour — a
@@ -13,7 +13,7 @@ Two stages:
      relaxed by chordal initialisation + Gauss-Newton (graph.pose_graph).
      Reports aligned keyframe ATE before/after relaxation.
 
-Run on TPU: python benchmarks/bench_longloop.py [--steps N] [--landmarks N]
+Run: python benchmarks/bench_longloop.py [--steps N] [--landmarks N]
 """
 
 import argparse
@@ -51,18 +51,16 @@ def main(steps: int = 56_000, landmarks: int = N_LANDMARKS):
     import jax
     import jax.numpy as jnp
 
-    from conan_slam_tpu.config import SlamConfig
-    from conan_slam_tpu.graph import pose_graph as pg
-    from conan_slam_tpu.graph.frontend import ClosureConfig, simulate_odometry_graph
-    from conan_slam_tpu.runner import metrics
-    from conan_slam_tpu.runner.loop import run_ekf_slam_precomputed
-    from conan_slam_tpu.sim.world import World, random_world
+    from conan_slam.config import SlamConfig
+    from conan_slam.graph import pose_graph as pg
+    from conan_slam.graph.frontend import ClosureConfig, simulate_odometry_graph
+    from conan_slam.runner import metrics
+    from conan_slam.runner.loop import run_ekf_slam_precomputed
+    from conan_slam.sim.world import World, random_world
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_bench_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from conan_slam.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
 
     n_lm = args.landmarks
     world = random_world(jax.random.PRNGKey(SEED), n_lm)
@@ -80,14 +78,14 @@ def main(steps: int = 56_000, landmarks: int = N_LANDMARKS):
     state, outs = run_ekf_slam_precomputed(
         world, cfg, jax.random.PRNGKey(0), n_steps=args.steps
     )
-    np.asarray(outs.x_est)
+    jax.block_until_ready((state, outs))
     log(f"compile+first run: {time.time() - t0:.1f}s")
 
     t0 = time.perf_counter()
     state, outs = run_ekf_slam_precomputed(
         world, cfg, jax.random.PRNGKey(1), n_steps=args.steps
     )
-    np.asarray(outs.x_est)
+    jax.block_until_ready((state, outs))
     wall = time.perf_counter() - t0
     ate_filter = float(metrics.ate_rmse(outs.x_true, outs.x_est, ~outs.done))
 
@@ -113,7 +111,7 @@ def main(steps: int = 56_000, landmarks: int = N_LANDMARKS):
         g, iterations=50, cg_iterations=4 * g.nodes.shape[0],
         chordal_init=True,
     )
-    np.asarray(g_opt.nodes)
+    jax.block_until_ready(g_opt)
     relax_wall = time.perf_counter() - t0
 
     stride = ccfg.keyframe_stride

@@ -1,18 +1,16 @@
 """Particle-filter throughput benchmark (BASELINE.json config 3).
 
-Measures particles/s/chip for the vmapped FastSLAM 2.0 ensemble on the
-canonical valet world at 1k particles (and a sweep).  Run on TPU:
+Measures particle-steps/s for the vmapped FastSLAM 2.0 ensemble on the
+canonical valet world over a sweep of ensemble sizes.  Run:
     python benchmarks/bench_pf.py
 """
 
-import os, sys
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-
+import os
 import sys
 import time
 
-import numpy as np
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
 
 
 def log(*a):
@@ -22,16 +20,14 @@ def log(*a):
 def main(ensembles=(100, 1000, 10000, 100000)):
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_bench_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from conan_slam.utils.compile_cache import setup_compile_cache
 
-    from conan_slam_tpu.config import SlamConfig
-    from conan_slam_tpu.runner.loop import run_pf_slam
-    from conan_slam_tpu.runner import metrics
-    from conan_slam_tpu.sim.world import default_world
+    setup_compile_cache()
+
+    from conan_slam.config import SlamConfig
+    from conan_slam.runner.loop import run_pf_slam
+    from conan_slam.runner import metrics
+    from conan_slam.sim.world import default_world
 
     world = default_world()
     steps = 1200
@@ -41,7 +37,7 @@ def main(ensembles=(100, 1000, 10000, 100000)):
         cfg = SlamConfig(num_particles=n_particles)
         t0 = time.time()
         carry, outs = run_pf_slam(world, cfg, jax.random.PRNGKey(0), n_steps=steps)
-        np.asarray(outs.x_est)
+        jax.block_until_ready((carry, outs))
         log(f"N={n_particles}: compile+run {time.time() - t0:.1f}s")
         ts = []
         for i in range(3):
@@ -49,7 +45,7 @@ def main(ensembles=(100, 1000, 10000, 100000)):
             carry, outs = run_pf_slam(
                 world, cfg, jax.random.PRNGKey(i + 1), n_steps=steps
             )
-            np.asarray(outs.x_est)
+            jax.block_until_ready((carry, outs))
             ts.append(time.perf_counter() - t0)
         best = min(ts)
         ate = float(metrics.ate_rmse(outs.x_true, outs.x_est, ~outs.done))

@@ -1,7 +1,7 @@
 """Diagnostic: how much does pose-graph relaxation improve a drifted
 no-heading run?  Sweeps ClosureConfig stiffness on one filter trajectory.
 
-Run on TPU: python benchmarks/probe_closure.py [--landmarks N] [--steps N]
+Run: python benchmarks/probe_closure.py [--landmarks N] [--steps N]
 """
 
 import argparse
@@ -22,18 +22,16 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from conan_slam_tpu.config import SlamConfig
-    from conan_slam_tpu.graph.frontend import ClosureConfig, relax_trajectory
-    from conan_slam_tpu.graph.pose_graph import graph_error
-    from conan_slam_tpu.runner import metrics
-    from conan_slam_tpu.runner.loop import run_ekf_slam_precomputed
-    from conan_slam_tpu.sim.world import default_world, random_world
+    from conan_slam.config import SlamConfig
+    from conan_slam.graph.frontend import ClosureConfig, relax_trajectory
+    from conan_slam.graph.pose_graph import graph_error
+    from conan_slam.runner import metrics
+    from conan_slam.runner.loop import run_ekf_slam_precomputed
+    from conan_slam.sim.world import default_world, random_world
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_bench_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from conan_slam.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
 
     world = random_world(jax.random.PRNGKey(11), args.landmarks)
     wp = jnp.concatenate([default_world().waypoints, jnp.zeros((1, 2), jnp.float32)])

@@ -1,17 +1,17 @@
 """Config-2 (gated-NN, 500 landmarks, mapping from scratch) ATE seed sweep:
-TPU filter vs the defect-fixed native C++ gated baseline on the SAME world.
+JAX filter vs the defect-fixed native C++ gated baseline on the SAME world.
 
-VERDICT r3 missing #3: the gated configs' ATE claims had no independent
-same-workload CPU anchor the way the headline does (the reference's own
+The gated configs' ATE claims need an independent same-workload CPU anchor
+the way the headline has one (the reference's own
 gated path is defect-broken — EKF.cpp:308/311, SURVEY section 8.4 — so the
 oracle is the defect-FIXED algorithm, implemented independently in
 native/slam_baseline.cpp::associate_gated and filters/ekf/associate.py).
 
 As in seed_sweep.py, the two stacks use different RNG streams, so the claim
-under test is distributional: TPU gated-NN mapping from scratch is not
+under test is distributional: JAX gated-NN mapping from scratch is not
 systematically less accurate than the same algorithm in straightforward C++.
 
-Run on TPU: python benchmarks/seed_sweep_gated.py [n_seeds]
+Run: python benchmarks/seed_sweep_gated.py [n_seeds]
 """
 
 from __future__ import annotations
@@ -36,20 +36,18 @@ def log(*a):
 def main(n_seeds: int = 12):
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_bench_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from conan_slam.utils.compile_cache import setup_compile_cache
 
-    from conan_slam_tpu.config import SlamConfig
-    from conan_slam_tpu.native import run_ekf_baseline
-    from conan_slam_tpu.runner import metrics
-    from conan_slam_tpu.runner.loop import (
+    setup_compile_cache()
+
+    from conan_slam.config import SlamConfig
+    from conan_slam.native import run_ekf_baseline
+    from conan_slam.runner import metrics
+    from conan_slam.runner.loop import (
         precompute_rollout,
         run_ekf_slam_precomputed,
     )
-    from conan_slam_tpu.sim.world import default_world, random_world
+    from conan_slam.sim.world import default_world, random_world
 
     world = random_world(jax.random.PRNGKey(WORLD_SEED), N_LANDMARKS)._replace(
         waypoints=default_world().waypoints
@@ -61,15 +59,15 @@ def main(n_seeds: int = 12):
     roll = precompute_rollout(world, cfg, STEPS)
     log(f"devices: {jax.devices()}")
 
-    tpu, nat = [], []
+    jx, nat = [], []
     for s in range(n_seeds):
         t0 = time.perf_counter()
         state, outs = run_ekf_slam_precomputed(
             world, cfg, jax.random.PRNGKey(s), n_steps=STEPS, precomputed=roll
         )
         ate = float(metrics.ate_rmse(outs.x_true, outs.x_est, ~outs.done))
-        tpu.append(ate)
-        log(f"tpu    seed {s}: ATE {ate:.4f} m, mapped {int(state.n_active)} "
+        jx.append(ate)
+        log(f"jax    seed {s}: ATE {ate:.4f} m, mapped {int(state.n_active)} "
             f"({time.perf_counter()-t0:.1f}s)")
 
     lm = np.asarray(world.landmarks)
@@ -85,20 +83,20 @@ def main(n_seeds: int = 12):
         log(f"native seed {s}: ATE {res.ate_rmse:.4f} m "
             f"({time.perf_counter()-t0:.1f}s, {res.steps_per_s:,.0f} steps/s)")
 
-    t = np.asarray(tpu)
+    t = np.asarray(jx)
     n = np.asarray(nat)
     print(f"# Config-2 gated-NN ATE, {n_seeds} seeds x {STEPS} steps "
           f"({N_LANDMARKS} landmarks, mapping from scratch)")
     print("| stack | median | mean | p90 | max |")
     print("|---|---|---|---|---|")
-    for name, a in (("TPU gated (jax threefry)", t),
+    for name, a in (("JAX gated (threefry)", t),
                     ("native C++ gated (mt19937)", n)):
         print(f"| {name} | {np.median(a):.4f} | {a.mean():.4f} | "
               f"{np.percentile(a, 90):.4f} | {a.max():.4f} |")
     wins = float(np.mean(t[:, None] < n[None, :]))
-    print(f"# P(TPU seed beats native seed) = {wins:.3f} "
+    print(f"# P(JAX seed beats native seed) = {wins:.3f} "
           f"(0.5 = indistinguishable)")
-    print(f"# per-seed tpu: {[round(x, 4) for x in tpu]}")
+    print(f"# per-seed jax: {[round(x, 4) for x in jx]}")
     print(f"# per-seed nat: {[round(x, 4) for x in nat]}")
 
 

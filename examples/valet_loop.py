@@ -3,8 +3,8 @@
 Usage:
     python examples/valet_loop.py [--pf] [--gated] [--no-heading] [--steps N]
 
-Runs on whatever JAX backend is active (TPU by default in this image; set
-platform to cpu for local runs — see CLAUDE.md).
+Runs on whatever JAX backend is active (the GPU where there is one; set
+JAX_PLATFORMS=cpu to run on the CPU).
 """
 
 import argparse
@@ -31,10 +31,14 @@ def main():
 
     import jax
 
-    from conan_slam_tpu.config import SlamConfig
-    from conan_slam_tpu.runner import metrics
-    from conan_slam_tpu.runner.loop import run_ekf_slam, run_pf_slam
-    from conan_slam_tpu.sim.world import default_world
+    from conan_slam.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
+
+    from conan_slam.config import SlamConfig
+    from conan_slam.runner import metrics
+    from conan_slam.runner.loop import run_ekf_slam, run_pf_slam
+    from conan_slam.sim.world import default_world
 
     cfg = SlamConfig(
         switch_association_known=not args.gated,
@@ -45,7 +49,7 @@ def main():
 
     t0 = time.time()
     carry, outs = run(world, cfg, jax.random.PRNGKey(args.seed), n_steps=args.steps)
-    np.asarray(outs.x_est)
+    jax.block_until_ready((carry, outs))
     wall = time.time() - t0
 
     valid = ~np.asarray(outs.done)
@@ -59,8 +63,8 @@ def main():
     print(f"wall (incl jit): {wall:.1f} s")
 
     if args.loop_closure:
-        from conan_slam_tpu.graph.frontend import ClosureConfig, relax_trajectory
-        from conan_slam_tpu.graph.pose_graph import graph_error
+        from conan_slam.graph.frontend import ClosureConfig, relax_trajectory
+        from conan_slam.graph.pose_graph import graph_error
 
         g, g_opt = relax_trajectory(
             outs.x_est, outs.x_true, ~outs.done, ClosureConfig(),

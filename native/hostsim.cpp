@@ -1,6 +1,6 @@
-// Native host-side simulation rollout for conan_slam_tpu.
+// Native host-side simulation rollout for conan_slam.
 //
-// Mirrors conan_slam_tpu/sim/precompute.py (rollout_truth /
+// Mirrors conan_slam/sim/precompute.py (rollout_truth /
 // rollout_observations) in float32: the deterministic steering + truth
 // motion chain (reference slam.h:279-332, 952-966) and the sensor
 // visibility + ascending-id compaction (reference slam.h:575-683).  The
@@ -8,7 +8,7 @@
 // benchmark region — so the host half of the pipeline is native, exactly
 // like the runtime components of the reference.
 //
-// Exposed via extern "C" for ctypes (conan_slam_tpu/native.py).
+// Exposed via extern "C" for ctypes (conan_slam/native.py).
 
 #include <cmath>
 #include <cstdint>

@@ -1,4 +1,4 @@
-// Clean-room CPU baseline for the conan_slam_tpu benchmarks.
+// Clean-room CPU baseline for the conan_slam benchmarks.
 //
 // BASELINE.md: the reference publishes no numbers, so the baseline is
 // self-established by running the reference *workload* (same world, noise,
@@ -8,7 +8,7 @@
 // against SURVEY.md's math inventory — it is not a copy of the reference
 // (row-major flat arrays, functions not classes, proper RNG, fixed defects).
 //
-// Exposed via extern "C" for ctypes (conan_slam_tpu/native.py).
+// Exposed via extern "C" for ctypes (conan_slam/native.py).
 
 #include <cmath>
 #include <cstdint>
@@ -200,7 +200,7 @@ struct EkfSlam {
   // units: every O(d) / O(d^2) loop is a contiguous row operation (axpy/FMA
   // over the d-length rows of P), exploiting P's symmetry to turn the
   // column reads of the naive path into row reads (the same row-gather idea
-  // as the TPU measurement operator).  Single-threaded, like the reference.
+  // as the JAX measurement operator).  Single-threaded, like the reference.
 
   void observe_heading_opt(float phi_meas, float sigma) {
     const int d = dim();
@@ -388,7 +388,7 @@ struct EkfSlam {
   // Defect-fixed gated NN association (reference EKF::dataAssociate /
   // computeAssociation, EKF.cpp:235-326 + 131-144; the reference's gated
   // path never returns new features — SURVEY.md defect 4 — fixed here, and
-  // in conan_slam_tpu/filters/ekf/associate.py with identical semantics):
+  // in conan_slam/filters/ekf/associate.py with identical semantics):
   // per measurement x active feature, the EXACT pairwise innovation
   // covariance S_j = [Hv Hf] [[Pvv, Pvj], [Pjv, Pjj]] [Hv Hf]^T + R from
   // the pose block, pose-feature strip and feature diagonal block;
@@ -542,7 +542,7 @@ int64_t run_ekf_baseline_v3(const float* lm_xy, int num_lm, const float* wp_xy,
       std::vector<int> idf, idn;
       if (gated) {
         // Buffer all visible returns (first max_obs in landmark order,
-        // mirroring the TPU path's fixed-size compact buffer), then gate.
+        // mirroring the JAX path's fixed-size compact buffer), then gate.
         std::vector<float> z_all;
         for (int i = 0; i < num_lm; ++i) {
           const float dx = lm_xy[2 * i] - xt[0], dy = lm_xy[2 * i + 1] - xt[1];

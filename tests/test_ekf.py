@@ -12,15 +12,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from conan_slam_tpu.config import SlamConfig
-from conan_slam_tpu.filters import ekf
-from conan_slam_tpu.filters.common import CompactObs, compact
-from conan_slam_tpu.models import sensor
-from conan_slam_tpu.ops.cholesky_update import cholesky_update, joseph_update, joseph_update_scalar
-from conan_slam_tpu.runner import metrics
-from conan_slam_tpu.runner.loop import run_ekf_slam
-from conan_slam_tpu.sim import sensor_sim
-from conan_slam_tpu.sim.world import default_world
+from conan_slam.config import SlamConfig
+from conan_slam.filters import ekf
+from conan_slam.filters.common import CompactObs, compact
+from conan_slam.models import sensor
+from conan_slam.ops.cholesky_update import cholesky_update, joseph_update, joseph_update_scalar
+from conan_slam.runner import metrics
+from conan_slam.runner.loop import run_ekf_slam
+from conan_slam.sim import sensor_sim
+from conan_slam.sim.world import default_world
 
 
 def _random_spd(rng, n, scale=1.0):
@@ -82,7 +82,7 @@ def test_predict_matches_dense_propagation():
     out = ekf.predict(state, v, swa, jnp.asarray(q), 73.0, 0.01)
 
     # Dense equivalent: G P G^T + Q_full with G = blockdiag(Gv, I).
-    from conan_slam_tpu.models import motion
+    from conan_slam.models import motion
     gv, gu = motion.jacobians(jnp.asarray(x0[:3]), v, swa, 73.0, 0.01)
     g = np.eye(d, dtype=np.float32)
     g[:3, :3] = np.asarray(gv)
@@ -158,10 +158,10 @@ def test_enable_augment_off_is_noop_at_full_capacity():
     """config.enable_augment=False (compile out the augment branch) must be
     bit-identical on a full-map steady-state run — augment at capacity drops
     every candidate slot, so the branch is a guaranteed no-op there."""
-    from conan_slam_tpu.config import SlamConfig
-    from conan_slam_tpu.filters.ekf import init_state_with_map
-    from conan_slam_tpu.runner.loop import run_ekf_slam
-    from conan_slam_tpu.sim.world import default_world
+    from conan_slam.config import SlamConfig
+    from conan_slam.filters.ekf import init_state_with_map
+    from conan_slam.runner.loop import run_ekf_slam
+    from conan_slam.sim.world import default_world
 
     world = default_world()
     state0 = init_state_with_map(world.landmarks, sigma0=1.0)
@@ -403,7 +403,7 @@ def test_nis_chi2_consistency():
     together catch divergence (NIS >> dof), covariance collapse (NIS -> 0),
     and a wrong inflation wiring — none of which per-frame algebra tests see.
     """
-    from conan_slam_tpu.runner.loop import run_ekf_slam_precomputed
+    from conan_slam.runner.loop import run_ekf_slam_precomputed
 
     world = default_world()
 
@@ -444,7 +444,7 @@ def test_chunked_driver_matches_oneshot():
     """run_ekf_slam_precomputed_chunked must stitch the same workload: shared
     truth rollout, same output shapes, equivalent tracking (noise keys fold
     per chunk, so realisations differ like seeds do)."""
-    from conan_slam_tpu.runner.loop import (
+    from conan_slam.runner.loop import (
         precompute_rollout,
         run_ekf_slam_precomputed,
         run_ekf_slam_precomputed_chunked,
@@ -466,34 +466,3 @@ def test_chunked_driver_matches_oneshot():
     a2 = float(metrics.ate_rmse(o2.x_true, o2.x_est, ~o2.done))
     assert np.isfinite(a2) and abs(a1 - a2) < 0.5, (a1, a2)
 
-
-def test_frame_pair_driver_matches_per_frame_driver():
-    # cfg.frame_pair (one covariance pass per TWO frames) must reproduce the
-    # per-frame precomputed driver exactly on the fallback path (CPU): the
-    # pair wrapper degenerates to two sequential fused frame steps, so
-    # outputs and final state are bit-identical.
-    import numpy as np
-
-    from conan_slam_tpu.filters import ekf as ekf_mod
-    from conan_slam_tpu.runner.loop import (
-        precompute_rollout,
-        run_ekf_slam_precomputed,
-    )
-    from conan_slam_tpu.sim.world import default_world
-
-    world = default_world()
-    key = jax.random.PRNGKey(3)
-    state0 = ekf_mod.init_state_with_map(world.landmarks, sigma0=1.0)
-    base = SlamConfig(enable_augment=False)
-    roll = precompute_rollout(world, base, 1200)
-    outs = {}
-    for pair in (False, True):
-        cfg = base.replace(frame_pair=pair)
-        st, o = run_ekf_slam_precomputed(
-            world, cfg, key, n_steps=1200, init_state=state0,
-            precomputed=roll,
-        )
-        outs[pair] = (np.asarray(o.x_est), np.asarray(o.consistency),
-                      np.asarray(st.x), np.asarray(st.p))
-    for a, b in zip(outs[False], outs[True]):
-        np.testing.assert_array_equal(a, b)

@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from conan_slam_tpu.filters import ekf
-from conan_slam_tpu.filters.ekf.fastframe import frame_predict_heading
+from conan_slam.filters import ekf
+from conan_slam.filters.ekf.fastframe import frame_predict_heading
 
 
 def _active_state(rng, cap, n_act, num_ids=40):
@@ -165,9 +165,9 @@ def test_fastframe_respects_done_mask():
 def test_associate_gated_virtual_matches_materialized():
     """Gating against the virtual covariance P + V B V^T (fastframe factors)
     must reproduce gating against the materialised frame covariance."""
-    from conan_slam_tpu.filters.ekf.fastframe import frame_factors
-    from conan_slam_tpu.filters.common import CompactObs
-    from conan_slam_tpu.models import sensor
+    from conan_slam.filters.ekf.fastframe import frame_factors
+    from conan_slam.filters.common import CompactObs
+    from conan_slam.models import sensor
 
     rng = np.random.default_rng(33)
     state = _active_state(rng, cap=10, n_act=7)
@@ -205,9 +205,9 @@ def test_associate_gated_virtual_matches_materialized():
 def test_fused_frame_update_matches_materialized_path():
     """frame_factors + fused_frame_update == frame_predict_heading +
     batch_update (the same frame, two data flows)."""
-    from conan_slam_tpu.filters.ekf.fastframe import frame_factors
-    from conan_slam_tpu.filters.common import CompactObs
-    from conan_slam_tpu.models import sensor
+    from conan_slam.filters.ekf.fastframe import frame_factors
+    from conan_slam.filters.common import CompactObs
+    from conan_slam.models import sensor
 
     rng = np.random.default_rng(21)
     state = _active_state(rng, cap=10, n_act=7)
@@ -232,10 +232,9 @@ def test_fused_frame_update_matches_materialized_path():
     r = jnp.asarray(np.diag([0.08, 0.0024]).astype(np.float32))
     ref = ekf.batch_update(mat, obs, slots, mask, r)
 
-    # Path B: factors + fused update (jnp fallback on CPU).
+    # Path B: factors + fused update.
     st_f, _, vmat, bmat = frame_factors(state, *args)
-    fused = ekf.fused_frame_update(st_f, vmat, bmat, obs, slots, mask, r,
-                                   use_pallas=False)
+    fused = ekf.fused_frame_update(st_f, vmat, bmat, obs, slots, mask, r)
     np.testing.assert_allclose(np.asarray(fused.x), np.asarray(ref.x),
                                rtol=1e-4, atol=2e-3)
     np.testing.assert_allclose(np.asarray(fused.p), np.asarray(ref.p),

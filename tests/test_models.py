@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from conan_slam_tpu.core import geometry
-from conan_slam_tpu.core.linalg import inv2, inv3, mvn_logpdf, safe_cholesky
-from conan_slam_tpu.models import motion, sensor
+from conan_slam.core import geometry
+from conan_slam.core.linalg import inv2, inv3, mvn_logpdf, safe_cholesky
+from conan_slam.models import motion, sensor
 
 
 def test_wrap_angle_range():
@@ -117,7 +117,7 @@ def test_mvn_logpdf_matches_scipy_formula():
 
 
 def test_sample_mvn_statistics():
-    from conan_slam_tpu.core.linalg import sample_mvn
+    from conan_slam.core.linalg import sample_mvn
     mean = jnp.asarray([1.0, -2.0])
     cov = jnp.asarray([[2.0, 0.6], [0.6, 0.5]])
     xs = sample_mvn(jax.random.PRNGKey(0), mean, cov, num_samples=20000)
@@ -126,7 +126,7 @@ def test_sample_mvn_statistics():
 
 
 def test_closed_form_chol3_and_logpdfs():
-    from conan_slam_tpu.core.linalg import chol3, mvn_logpdf2, mvn_logpdf3, mvn_logpdf
+    from conan_slam.core.linalg import chol3, mvn_logpdf2, mvn_logpdf3, mvn_logpdf
     rng = np.random.default_rng(5)
     a = rng.normal(size=(7, 3, 3)).astype(np.float32)
     s3 = a @ a.transpose(0, 2, 1) + np.eye(3, dtype=np.float32) * 0.3

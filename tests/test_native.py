@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from conan_slam_tpu.sim.world import default_world
+from conan_slam.sim.world import default_world
 
 
 @pytest.fixture(scope="module")
@@ -13,7 +13,7 @@ def world_np():
 
 
 def _run(lm, wp, **kw):
-    from conan_slam_tpu.native import run_ekf_baseline
+    from conan_slam.native import run_ekf_baseline
 
     try:
         return run_ekf_baseline(lm, wp, 25_000, **kw)
@@ -25,7 +25,7 @@ def test_native_gated_matches_table_association_on_canonical_world(world_np):
     """The defect-fixed gated-NN path (slam_baseline.cpp::associate_gated,
     reference EKF.cpp:235-326 with SURVEY defect 4 fixed) must reach the
     same accuracy as ground-truth table association on the canonical world —
-    the same property the TPU path's gated tests assert."""
+    the same property the JAX path's gated tests assert."""
     lm, wp = world_np
     table = _run(lm, wp, seed=3, with_noise=True, opt=True)
     gated = _run(lm, wp, seed=3, with_noise=True, opt=True,

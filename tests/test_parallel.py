@@ -10,11 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from conan_slam_tpu.core.linalg import sym
-from conan_slam_tpu.filters import pf
-from conan_slam_tpu.ops.cholesky_update import cholesky_update, joseph_update_scalar
-from conan_slam_tpu.parallel import dist_ekf, dist_pf
-from conan_slam_tpu.parallel.mesh import PARTICLE_AXIS, STATE_AXIS, make_mesh
+from conan_slam.core.linalg import sym
+from conan_slam.filters import pf
+from conan_slam.ops.cholesky_update import cholesky_update, joseph_update_scalar
+from conan_slam.parallel import dist_ekf, dist_pf
+from conan_slam.parallel.mesh import PARTICLE_AXIS, STATE_AXIS, make_mesh
 
 
 def _random_system(rng, d, m):
@@ -46,7 +46,7 @@ def test_sharded_cholesky_update_matches_single_device():
 
 
 def test_sharded_predict_and_heading_match_single_device():
-    from conan_slam_tpu.filters import ekf
+    from conan_slam.filters import ekf
 
     mesh = make_mesh({STATE_AXIS: 8})
     rng = np.random.default_rng(1)
@@ -73,8 +73,8 @@ def test_sharded_predict_and_heading_match_single_device():
 
 
 def test_sharded_observation_update_matches_single_device():
-    from conan_slam_tpu.filters import ekf
-    from conan_slam_tpu.filters.common import CompactObs
+    from conan_slam.filters import ekf
+    from conan_slam.filters.common import CompactObs
 
     mesh = make_mesh({STATE_AXIS: 8})
     rng = np.random.default_rng(2)
@@ -89,7 +89,7 @@ def test_sharded_observation_update_matches_single_device():
     state = state._replace(x=jnp.asarray(x0), p=jnp.asarray(p0),
                            n_active=jnp.int32(cap))
 
-    from conan_slam_tpu.models import sensor
+    from conan_slam.models import sensor
     zp, _, _ = sensor.observe(state.pose, jnp.asarray(feats[:4]))
     z = np.asarray(zp) + rng.normal(size=(4, 2)).astype(np.float32) * [0.3, 0.01]
     obs = CompactObs(z=jnp.asarray(z), ids=jnp.arange(4, dtype=jnp.int32),
@@ -181,8 +181,8 @@ def test_sharded_pf_observation_step_matches_single_device():
     """The FULL PF observation block (proposal + feature update + resample +
     new-feature founding + table bookkeeping) under particle sharding must be
     bit-identical to the single-device step (same keys, same strata)."""
-    from conan_slam_tpu.filters.common import CompactObs
-    from conan_slam_tpu.models import sensor
+    from conan_slam.filters.common import CompactObs
+    from conan_slam.models import sensor
 
     mesh = make_mesh({PARTICLE_AXIS: 8})
     n, cap = 64, 8
@@ -235,9 +235,9 @@ def test_sharded_pf_observation_step_matches_single_device():
 
 
 def test_sharded_augment_matches_single_device():
-    from conan_slam_tpu.filters import ekf
-    from conan_slam_tpu.filters.common import CompactObs
-    from conan_slam_tpu.models import sensor
+    from conan_slam.filters import ekf
+    from conan_slam.filters.common import CompactObs
+    from conan_slam.models import sensor
 
     mesh = make_mesh({STATE_AXIS: 8})
     rng = np.random.default_rng(9)
@@ -283,12 +283,12 @@ def test_sharded_frame_update_matches_single_device_fused_frame():
     single-device fused frame (frame factors folded into the batched
     measurement update) to float32 tolerance, and an all-inactive frame must
     be an exact no-op."""
-    from conan_slam_tpu.filters import ekf
-    from conan_slam_tpu.filters.common import CompactObs
-    from conan_slam_tpu.filters.ekf.fastframe import frame_factors
-    from conan_slam_tpu.filters.ekf.update import fused_frame_update
-    from conan_slam_tpu.models import sensor
-    from conan_slam_tpu.parallel import dist_fastframe
+    from conan_slam.filters import ekf
+    from conan_slam.filters.common import CompactObs
+    from conan_slam.filters.ekf.fastframe import frame_factors
+    from conan_slam.filters.ekf.update import fused_frame_update
+    from conan_slam.models import sensor
+    from conan_slam.parallel import dist_fastframe
 
     mesh = make_mesh({STATE_AXIS: 8})
     rng = np.random.default_rng(4)
@@ -329,7 +329,7 @@ def test_sharded_frame_update_matches_single_device_fused_frame():
         state, vns, swans, phis, act, q, 73.0, 0.01, sigma_h, True
     )
     ref, nis_ref = fused_frame_update(
-        st1, vmat, bmat, obs, slots, mask, r, use_pallas=False, return_nis=True
+        st1, vmat, bmat, obs, slots, mask, r, return_nis=True
     )
 
     xs, ps = dist_ekf.shard_state(mesh, state.x, state.p)
@@ -362,10 +362,10 @@ def test_sharded_sim_loop_matches_single_device_statistics():
     """Full sharded EKF sim loop on the 8-device mesh: tracks truth on the
     canonical world (noise-free oracle) and stays close to the single-device
     runner's trajectory."""
-    from conan_slam_tpu.config import SlamConfig
-    from conan_slam_tpu.parallel.dist_runner import run_ekf_slam_sharded
-    from conan_slam_tpu.runner import metrics
-    from conan_slam_tpu.sim.world import default_world
+    from conan_slam.config import SlamConfig
+    from conan_slam.parallel.dist_runner import run_ekf_slam_sharded
+    from conan_slam.runner import metrics
+    from conan_slam.sim.world import default_world
 
     mesh = make_mesh({STATE_AXIS: 8})
     world = default_world()
@@ -387,9 +387,9 @@ def test_sharded_frame_update_i16_gain_wire_close_and_symmetric():
     quantisation tolerance of the exact f32 wire AND keep the downdate
     symmetric — the decode is shared by both Gram factors, so asym(P) must
     not grow beyond the f32 path's float noise."""
-    from conan_slam_tpu.filters import ekf
-    from conan_slam_tpu.models import sensor
-    from conan_slam_tpu.parallel import dist_fastframe
+    from conan_slam.filters import ekf
+    from conan_slam.models import sensor
+    from conan_slam.parallel import dist_fastframe
 
     mesh = make_mesh({STATE_AXIS: 8})
     rng = np.random.default_rng(9)

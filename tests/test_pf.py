@@ -5,13 +5,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from conan_slam_tpu.config import SlamConfig
-from conan_slam_tpu.filters import pf
-from conan_slam_tpu.filters.common import CompactObs
-from conan_slam_tpu.models import sensor
-from conan_slam_tpu.runner import metrics
-from conan_slam_tpu.runner.loop import run_pf_slam
-from conan_slam_tpu.sim.world import default_world
+from conan_slam.config import SlamConfig
+from conan_slam.filters import pf
+from conan_slam.filters.common import CompactObs
+from conan_slam.models import sensor
+from conan_slam.runner import metrics
+from conan_slam.runner.loop import run_pf_slam
+from conan_slam.sim.world import default_world
 
 
 def _ens_with_features(n=8, k=4, feats=None, num_ids=12):
@@ -43,7 +43,7 @@ def test_predict_propagates_pose_cov():
     q = jnp.asarray(np.diag([0.09, 0.0003]).astype(np.float32))
     out = pf.predict(ens, 50.0, 0.1, q, 73.0, 0.01)
     # All particles identical; covariance = Gu Q Gu^T after one step from P=0.
-    from conan_slam_tpu.models import motion
+    from conan_slam.models import motion
     gv, gu = motion.jacobians(jnp.zeros(3), 50.0, 0.1, 73.0, 0.01)
     expected = np.asarray(gu) @ np.asarray(q) @ np.asarray(gu).T
     np.testing.assert_allclose(out.pose_cov[0], expected, rtol=1e-4, atol=1e-8)
@@ -134,7 +134,7 @@ def test_stratified_resample_statistics():
 
 
 def test_systematic_resample_statistics_and_roughening():
-    from conan_slam_tpu.filters.pf.resample import systematic_indices
+    from conan_slam.filters.pf.resample import systematic_indices
 
     key = jax.random.PRNGKey(2)
     w = jnp.asarray(np.asarray([0.5, 0.25, 0.125, 0.125], np.float32))
@@ -209,7 +209,7 @@ def test_sample_proposal_relinearized_path():
         pose=jnp.tile(jnp.asarray([1.0, -0.5, 0.02]), (n, 1)),
         pose_cov=jnp.tile(jnp.eye(3) * jnp.asarray([1.0, 1.0, 0.01]), (n, 1, 1)),
     )
-    from conan_slam_tpu.models import sensor
+    from conan_slam.models import sensor
     zp, _, _ = sensor.observe(jnp.zeros(3), jnp.asarray(feats))
     obs = CompactObs(z=zp, ids=jnp.asarray([0, 1], jnp.int32),
                      mask=jnp.asarray([True, True]))

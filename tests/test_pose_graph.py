@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from conan_slam_tpu.core.geometry import wrap_angle
-from conan_slam_tpu.graph import pose_graph as pg
+from conan_slam.core.geometry import wrap_angle
+from conan_slam.graph import pose_graph as pg
 
 
 def _simulate_loop(n=40, drift=0.02, seed=0):
@@ -127,11 +127,11 @@ def test_dead_reckoned_valet_chain_recovers_with_closures():
     import jax
     import jax.numpy as jnp
 
-    from conan_slam_tpu.config import SlamConfig
-    from conan_slam_tpu.graph.frontend import ClosureConfig, simulate_odometry_graph
-    from conan_slam_tpu.runner import metrics
-    from conan_slam_tpu.sim.precompute import rollout_truth
-    from conan_slam_tpu.sim.world import default_world
+    from conan_slam.config import SlamConfig
+    from conan_slam.graph.frontend import ClosureConfig, simulate_odometry_graph
+    from conan_slam.runner import metrics
+    from conan_slam.sim.precompute import rollout_truth
+    from conan_slam.sim.world import default_world
 
     del default_world  # star-polygon tour: the path self-intersects many
     # times (transverse crossings), the geometry loop closure needs — a
@@ -194,7 +194,7 @@ def test_iterated_redetection_recovers_closures_without_oracle():
     # (b) approach the oracle-detection accuracy.
     import jax
 
-    from conan_slam_tpu.graph.frontend import ClosureConfig, relax_trajectory
+    from conan_slam.graph.frontend import ClosureConfig, relax_trajectory
 
     rng = np.random.default_rng(3)
     # A figure-eight-ish tour revisiting the origin region several times.
@@ -234,7 +234,7 @@ def test_iterated_redetection_recovers_closures_without_oracle():
     nclo = int(np.asarray(go.edge_mask)[n - 1:].sum())
     assert ncl3 > ncl1, (ncl1, ncl3)
 
-    from conan_slam_tpu.runner import metrics
+    from conan_slam.runner import metrics
 
     kf_true = np.asarray(truth)[::cfg.keyframe_stride][:n]
     kf_valid = np.asarray(valid)[::cfg.keyframe_stride][:n]

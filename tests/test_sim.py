@@ -4,11 +4,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from conan_slam_tpu.config import SlamConfig
-from conan_slam_tpu.runner.loop import _advance_truth
-from conan_slam_tpu.sim.precompute import rollout_truth
-from conan_slam_tpu.sim.steering import init_steer_state
-from conan_slam_tpu.sim.world import default_world
+from conan_slam.config import SlamConfig
+from conan_slam.runner.loop import _advance_truth
+from conan_slam.sim.precompute import rollout_truth
+from conan_slam.sim.steering import init_steer_state
+from conan_slam.sim.world import default_world
 
 
 def test_rollout_matches_device_truth_chain():
@@ -35,9 +35,9 @@ def test_rollout_matches_device_truth_chain():
 
 
 def test_rollout_observations_matches_device_sensor():
-    from conan_slam_tpu.filters.common import compact
-    from conan_slam_tpu.sim import sensor_sim
-    from conan_slam_tpu.sim.precompute import rollout_observations
+    from conan_slam.filters.common import compact
+    from conan_slam.sim import sensor_sim
+    from conan_slam.sim.precompute import rollout_observations
 
     world = default_world()
     cfg = SlamConfig()
@@ -50,7 +50,7 @@ def test_rollout_observations_matches_device_sensor():
         roll.x_true, np.asarray(world.landmarks), cfg.max_range, nz, interval
     )
 
-    from conan_slam_tpu.core.geometry import wrap_angle
+    from conan_slam.core.geometry import wrap_angle
 
     for f in range(0, n // interval, 7):
         pose = jnp.asarray(roll.x_true[(f + 1) * interval - 1])
@@ -71,8 +71,8 @@ def test_rollout_observations_matches_device_sensor():
 def test_precomputed_runner_matches_frame_scan_noise_free():
     """With all noise off the precomputed-rollout runner and the on-device
     frame scan integrate the same filter; trajectories must agree closely."""
-    from conan_slam_tpu.runner import metrics
-    from conan_slam_tpu.runner.loop import run_ekf_slam, run_ekf_slam_precomputed
+    from conan_slam.runner import metrics
+    from conan_slam.runner.loop import run_ekf_slam, run_ekf_slam_precomputed
 
     world = default_world()
     cfg = SlamConfig(
@@ -98,11 +98,11 @@ def test_precomputed_runner_matches_frame_scan_noise_free():
 def test_native_rollout_matches_python():
     """native/hostsim.cpp mirrors the Python float32 rollout (libm ulp-level
     accumulation differences only); skip when no toolchain."""
-    from conan_slam_tpu.sim.precompute import rollout_observations
+    from conan_slam.sim.precompute import rollout_observations
 
     try:
-        from conan_slam_tpu.native import rollout_truth_native  # noqa: F401
-        import conan_slam_tpu.native as native_mod
+        from conan_slam.native import rollout_truth_native  # noqa: F401
+        import conan_slam.native as native_mod
 
         native_mod._load_hostsim()
     except Exception:

@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from conan_slam_tpu.filters import ekf
-from conan_slam_tpu.graph.frontend import ClosureConfig, relax_trajectory
-from conan_slam_tpu.graph.pose_graph import graph_error
-from conan_slam_tpu.utils import checkpoint
+from conan_slam.filters import ekf
+from conan_slam.graph.frontend import ClosureConfig, relax_trajectory
+from conan_slam.graph.pose_graph import graph_error
+from conan_slam.utils import checkpoint
 
 
 def test_checkpoint_roundtrip_ekf_state(tmp_path):
@@ -34,12 +34,12 @@ def test_chunked_driver_kill_and_resume_bit_identical(tmp_path):
     must produce the SAME final state and trajectory as an uninterrupted
     run — bit-identical, because chunk boundaries and per-chunk noise keys
     are deterministic in the arguments."""
-    from conan_slam_tpu.config import SlamConfig
-    from conan_slam_tpu.runner.loop import (
+    from conan_slam.config import SlamConfig
+    from conan_slam.runner.loop import (
         precompute_rollout,
         run_ekf_slam_precomputed_chunked,
     )
-    from conan_slam_tpu.sim.world import default_world
+    from conan_slam.sim.world import default_world
 
     world = default_world()
     cfg = SlamConfig(max_landmarks=30)
@@ -80,10 +80,10 @@ def test_plot_run_writes_png_with_covariance_ellipses(tmp_path):
     covariance draws pose + per-feature ellipses and writes a PNG
     (the capability the reference lacks, reference README.md:14-21)."""
     pytest.importorskip("matplotlib")
-    from conan_slam_tpu.config import SlamConfig
-    from conan_slam_tpu.runner.loop import run_ekf_slam
-    from conan_slam_tpu.sim.world import default_world
-    from conan_slam_tpu.utils.viz import plot_run
+    from conan_slam.config import SlamConfig
+    from conan_slam.runner.loop import run_ekf_slam
+    from conan_slam.sim.world import default_world
+    from conan_slam.utils.viz import plot_run
 
     world = default_world()
     carry, outs = run_ekf_slam(
